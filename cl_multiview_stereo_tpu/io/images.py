@@ -15,6 +15,8 @@ import os
 
 import numpy as np
 
+from cl_multiview_stereo_tpu.io import png
+
 
 def read_image_list(list_path: str, view_num: int | None = None) -> list[str]:
     """Parse the reference's list format: one path per line, blank lines
@@ -36,9 +38,28 @@ def read_image_list(list_path: str, view_num: int | None = None) -> list[str]:
 
 
 def load_image(path: str) -> np.ndarray:
-    """Decode one image to (H, W, 3) uint8 RGB."""
-    from PIL import Image
+    """Decode one image to (H, W, 3) uint8 RGB.
 
+    PNG goes through the package's own codec (``io.png``); gray input is
+    replicated to three channels and an alpha channel is dropped.  Other
+    formats (JPEG, ...) need Pillow and fail with an error naming the
+    missing decoder when it cannot be imported.
+    """
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(png.SIGNATURE):
+        img = png.decode_png(data)
+        if img.shape[2] == 1:
+            return np.repeat(img, 3, axis=2)
+        return np.ascontiguousarray(img[..., :3])
+    kind = "JPEG" if data.startswith(b"\xff\xd8") else "non-PNG"
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ValueError(
+            f"{path}: {kind} input needs the Pillow decoder, which is not "
+            "installed (PNG is decoded without it)"
+        ) from None
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"), dtype=np.uint8)
 
@@ -91,18 +112,14 @@ def draw_segmentation_lines(rgb: np.ndarray, labels: np.ndarray) -> np.ndarray:
 
 def save_png(path: str, img: np.ndarray) -> None:
     """Write an (H, W, 3) uint8 RGB image."""
-    from PIL import Image
-
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    Image.fromarray(np.asarray(img, dtype=np.uint8)).save(path)
+    png.write_png(path, np.asarray(img, dtype=np.uint8))
 
 
 def save_gray_png(path: str, img: np.ndarray, lo: float, hi: float) -> None:
     """Normalized grayscale dump, the reference's per-stage debug artifact
     (e.g. ``img_translate`` photo_consistency.cpp:414-438)."""
-    from PIL import Image
-
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     x = np.asarray(img, dtype=np.float64)
     scaled = np.clip((x - lo) / max(hi - lo, 1e-12), 0.0, 1.0)
-    Image.fromarray((scaled * 255.0).astype(np.uint8)).save(path)
+    png.write_png(path, (scaled * 255.0).astype(np.uint8))

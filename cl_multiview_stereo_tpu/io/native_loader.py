@@ -2,49 +2,56 @@
 
 ``load_image_array_native`` is a drop-in replacement for
 ``images.load_image_array`` that decodes the whole camera array with a C++
-thread pool (PNG via libpng, JPEG via libjpeg).  Falls back to the PIL path
-automatically if the toolchain is unavailable.
+thread pool (PNG via libpng, JPEG via libjpeg).  The library is compiled
+at first use; when that fails, the failure is reported once and loading
+goes through ``images.load_image_array`` (the numpy PNG codec) instead.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import sys
 
 import numpy as np
 
 from cl_multiview_stereo_tpu.io.images import load_image_array, read_image_list
 
 _lib = None
+_failed = False
 
 
 def _load() -> ctypes.CDLL | None:
-    global _lib
-    if _lib is not None:
+    global _lib, _failed
+    if _lib is not None or _failed:
         return _lib
-    try:
-        from cl_multiview_stereo_tpu.native.build import ensure_built
+    from cl_multiview_stereo_tpu.native.build import ensure_built
 
-        path = ensure_built()
-        lib = ctypes.CDLL(path)
-        lib.mvs_probe.argtypes = [
-            ctypes.c_char_p,
-            ctypes.POINTER(ctypes.c_int),
-            ctypes.POINTER(ctypes.c_int),
-        ]
-        lib.mvs_probe.restype = ctypes.c_int
-        lib.mvs_load_batch.argtypes = [
-            ctypes.POINTER(ctypes.c_char_p),
-            ctypes.c_int,
-            ctypes.POINTER(ctypes.c_ubyte),
-            ctypes.c_int,
-            ctypes.c_int,
-            ctypes.c_int,
-        ]
-        lib.mvs_load_batch.restype = ctypes.c_int
-        _lib = lib
-    except Exception:
-        _lib = None
+    try:
+        lib = ctypes.CDLL(ensure_built())
+    except (RuntimeError, OSError) as e:
+        _failed = True
+        print(
+            f"native image loader unavailable, using the numpy PNG codec: {e}",
+            file=sys.stderr,
+        )
+        return None
+    lib.mvs_probe.argtypes = [
+        ctypes.c_char_p,
+        ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int),
+    ]
+    lib.mvs_probe.restype = ctypes.c_int
+    lib.mvs_load_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p),
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_ubyte),
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.c_int,
+    ]
+    lib.mvs_load_batch.restype = ctypes.c_int
+    _lib = lib
     return _lib
 
 
@@ -55,7 +62,8 @@ def native_available() -> bool:
 def load_image_array_native(
     list_path: str, view_num: int | None = None, threads: int | None = None
 ) -> np.ndarray:
-    """Load (V, H, W, 3) uint8 RGB via the C++ loader; PIL fallback."""
+    """Load (V, H, W, 3) uint8 RGB via the C++ loader; numpy codec when the
+    library could not be built."""
     lib = _load()
     if lib is None:
         return load_image_array(list_path, view_num)

@@ -16,7 +16,7 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
-from cl_multiview_stereo_tpu.io.images import read_image_list
+from cl_multiview_stereo_tpu.io.images import load_image, read_image_list
 
 
 def _lib():
@@ -47,8 +47,8 @@ class ScenePrefetcher:
 
     ``scenes``: list of per-scene image-path lists (all images h x w, all
     scenes the same view count).  ``depth``: scenes decoded ahead.
-    Falls back to synchronous PIL loading when the native library is
-    unavailable.
+    Falls back to synchronous loading through the numpy PNG codec when the
+    native library is unavailable.
     """
 
     def __init__(
@@ -86,13 +86,8 @@ class ScenePrefetcher:
 
     def __iter__(self) -> Iterator[tuple[int, np.ndarray]]:
         if self._handle is None:  # synchronous fallback
-            from PIL import Image
-
             for i, s in enumerate(self.scenes):
-                arr = np.stack(
-                    [np.asarray(Image.open(p).convert("RGB")) for p in s]
-                )
-                yield i, arr
+                yield i, np.stack([load_image(p) for p in s])
             return
         for _ in range(len(self.scenes)):
             out = np.empty((self.views, self.h, self.w, 3), np.uint8)

@@ -7,7 +7,7 @@ Stage sequence (reference: ``pipeline::exe_pipeline`` + the dormant
   init -> flatness -> state init -> PatchMatch propagation x no_prop ->
   fusion (plane rasterization [+ optional cross-view vote])
 
-TPU-first: unlike the reference, which re-uploads every array at each stage
+Unlike the reference, which re-uploads every array at each stage
 boundary (SURVEY.md section 1), all state here stays device-resident; the
 host only touches the input images and the final disparity maps.
 """
@@ -32,6 +32,11 @@ from cl_multiview_stereo_tpu.config import (
 from cl_multiview_stereo_tpu.ops import cost_volume, fusion, refine, slic, superpixel
 from cl_multiview_stereo_tpu.ops.color import rgb_to_lab
 
+# Compile options of every whole-pipeline program (``jitted()``, the
+# view-sharded program): denormals flush to zero on the GPU as they do on
+# XLA:CPU, so the two backends run the same float32 arithmetic mode.
+XLA_OPTIONS = {"xla_gpu_ftz": True}
+
 
 class PipelineArtifacts(NamedTuple):
     """Every stage output, the framework's equivalent of the reference's
@@ -54,9 +59,11 @@ class MVSPipeline:
     settings: SystemSettings
     geom: DerivedGeometry
     cross_check: bool = False
-    depth_method: str = "dense"  # "dense" (TPU-fast) or "gather" (exact)
-    # Refinement pair-axis layout: "packed" (single-chip default) or "view"
-    # (per-ref-view slots — the config-4 memory fix: under GSPMD view
+    # "dense" (shift-plane form, the default) or "gather" (per-sample
+    # gathers); both exact
+    depth_method: str = "dense"
+    # Refinement pair-axis layout: "packed" (single-device default) or "view"
+    # (per-ref-view slots — the 7x7 2K rig's memory fix: under GSPMD view
     # sharding every consistency temporary keeps the leading view axis and
     # shards with the mesh; bitwise-equal results, see refine.py)
     pair_layout: str = "packed"
@@ -124,8 +131,9 @@ class MVSPipeline:
                 neib_hor=s.neib_hor,
                 neib_ver=s.neib_ver,
                 # the wide-row dense tables REPLICATE under GSPMD view
-                # sharding (1.8 TB/device at config-4) — the sharded
-                # memory-constrained mode keeps the per-hypothesis form
+                # sharding (terabytes per device at the 7x7 2K rig) — the
+                # sharded memory-constrained mode keeps the per-hypothesis
+                # form
                 dense_wide_rows=(self.pair_layout != "view"),
             )
         flatness = refine.compute_flatness(spmap.color, sched.gamma_eff)
@@ -246,7 +254,7 @@ class MVSPipeline:
         full cross-stage fusion, the device-resident design of SURVEY.md
         section 7.1.
         """
-        return jax.jit(self.run)
+        return jax.jit(self.run, compiler_options=XLA_OPTIONS)
 
     def run_from_list(self, list_path: str) -> PipelineArtifacts:
         from cl_multiview_stereo_tpu.io.images import load_image_array

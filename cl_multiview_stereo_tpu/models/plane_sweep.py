@@ -7,12 +7,11 @@ is resampled at ``(x - d*dvx, y - bl_ratio*d*dvy)`` (clcode.cl:1033-1034),
 the SAD over a box window is aggregated, the per-hypothesis cost is the min
 over neighbor views, and WTA picks the disparity.
 
-TPU-first: the disparity ladder is static, so every per-hypothesis shift is
+The disparity ladder is static, so every per-hypothesis shift is
 a *compile-time* translation — implemented with pad+slice instead of
 gathers.  The whole sweep is a fixed XLA fusion of shifts, absolute
 differences and box-filter sums (separable cumulative-sum filter), with no
-data-dependent indexing at all.  This is also the framework's roofline
-benchmark kernel (BASELINE.md config 1/4).
+data-dependent indexing at all.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ section 2.3); its implicit rectified-grid camera (disparity shift scaled by
 ``bl_ratio``, clcode.cl:1033-1034) becomes one special case of the pinhole
 model here (``grid_rig_poses``).
 
-Design (TPU-first):
+Design:
   * every quantity is a dense, shape-static array: C cameras (axis-angle +
     translation), P points, N observations (camera id, point id, uv, weight);
   * Gauss-Newton with Levenberg damping; per-observation Jacobians come from
@@ -16,7 +16,7 @@ Design (TPU-first):
     is exactly what the Schur trick exploits;
   * the distributed form shards the observation axis over the mesh and
     reduces every per-point and per-camera accumulation with ``psum``
-    (``shard_map``), so each chip touches only its observations — the
+    (``shard_map``), so each device touches only its observations — the
     camera solve is replicated (tiny).
 """
 
@@ -219,7 +219,7 @@ def _schur_corr_blocked(
     BLOCKED form: per-point compact slot tables (P, D, 6, 3) with D = max
     observations per point, then a point-chunked scan accumulating (6, 6)
     blocks into the (C, C) camera-pair grid.  Replaces the (P, 6C, 3)
-    scatter-add that capped the solver at C <= ~128 (VERDICT r3 item 8):
+    scatter-add that capped the solver at C <= ~128:
     memory is now O(P*D) + O(chunk*D^2) regardless of camera count, so the
     100+ camera multi-scene configuration fits.
 
@@ -439,9 +439,8 @@ def bundle_adjust_sharded(
     fix_rotations: bool = False, max_deg: int = 16,
 ):
     """Distributed BA: observations sharded over the mesh's ``view`` axis,
-    every normal-equation accumulation reduced with ``psum`` over ICI;
-    camera/point state replicated (BASELINE north star: per-chip camera
-    blocks, Schur reduction via collectives).
+    every normal-equation accumulation reduced with ``psum``;
+    camera/point state replicated (Schur reduction via collectives).
 
     Observations are globally sorted by point id up front so every shard
     scatters into the blocked Schur slot tables with GLOBAL slot ranks —
@@ -520,12 +519,12 @@ def ate(t_est: jax.Array, t_gt: jax.Array) -> jax.Array:
     return jnp.sqrt(jnp.mean(jnp.sum(d * d, axis=-1)))
 
 # ---------------------------------------------------------------------------
-# Pose-graph backend (north-star: "distributed BA with pose-graph backend")
+# Pose-graph backend
 # ---------------------------------------------------------------------------
 #
 # The reference has no poses at all (its camera is the implicit rectified
-# grid of clcode.cl:1033-1034); BASELINE.json's north star asks for a
-# pose-graph backend in front of the Schur BA.  Design (TPU-first): edges
+# grid of clcode.cl:1033-1034); this adds a
+# pose-graph backend in front of the Schur BA.  Design: edges
 # are dense shape-static arrays; per-edge 6-DoF residuals and their
 # Jacobians come from ``jax.jacfwd`` vmapped over the edge axis; the
 # (6C x 6C) normal equations are assembled with segment-sums over edge

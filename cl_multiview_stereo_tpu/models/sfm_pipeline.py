@@ -12,11 +12,12 @@ rectified grid of ``clcode.cl:1033-1034`` (disparity shift scaled by
 and generalizes the projection path: ``pairs_from_poses`` converts
 recovered camera translations back into the per-pair baseline deltas
 (dvx, dvy) the refinement consistency term consumes, making the implicit
-grid one special case (SURVEY.md section 7.1.6 / VERDICT round-1 item 7).
+grid one special case (SURVEY.md section 7.1.6).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import jax
@@ -53,6 +54,26 @@ def _unique_adjacent_pairs(settings: SystemSettings) -> np.ndarray:
     return np.asarray(out, np.int32)
 
 
+def _highest_matmul_precision(fn):
+    """Trace ``fn`` with float32 matrix products at full float32 precision.
+
+    The SfM products are tiny (6x6 and 3x3 blocks, 512-wide descriptors),
+    but a GPU runs a float32 product at its default precision in TF32,
+    and a bundle adjustment whose normal equations, Schur complement or
+    pose graph are built in TF32 converges to a different result.  One
+    scope around each entry point covers every product the SfM code traces
+    (``models.sfm``, ``ops.features``) without a flag at each of them.
+    """
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kw):
+        with jax.default_matmul_precision("highest"):
+            return fn(*args, **kw)
+
+    return wrapped
+
+
+@_highest_matmul_precision
 def run_sfm(
     rgb: np.ndarray,
     settings: SystemSettings,
@@ -78,7 +99,7 @@ def run_sfm(
     two-view BA factors (``sfm.two_view_relative``) over the grid-adjacent
     match graph, a relative-pose solve (``sfm.pose_graph_optimize``, loop
     closures from the grid's 4-cycles), and THAT solution seeds the Schur
-    BA (the BASELINE north-star pipeline shape).
+    BA.
     """
     v, h, w = rgb.shape[:3]
     s = settings
@@ -224,6 +245,7 @@ def run_sfm(
     )
 
 
+@_highest_matmul_precision
 def pairs_from_poses(
     t: np.ndarray,
     view_subset: np.ndarray,

@@ -1,7 +1,5 @@
-"""Compute ops: jnp reference implementations + Pallas TPU kernels.
+"""Compute ops: vectorized ``jnp``/``lax`` implementations left to XLA.
 
-Every op has (a) a vectorized ``jnp`` implementation that is the source of
-truth for behavior (checked against pure-numpy scalar mirrors in
-``cl_multiview_stereo_tpu.testing.mirror``), and for the hot paths (b) a
-Pallas TPU kernel checked against (a).
+Each op is the source of truth for its behavior and is checked against the
+pure-numpy scalar mirrors in ``cl_multiview_stereo_tpu.testing.mirror``.
 """

@@ -11,12 +11,11 @@ per-hypothesis cost is the *min* over neighbor views (clcode.cl:1054-1055)
 and the winner-take-all disparity is written to the superpixel record
 (clcode.cl:1059-1067).
 
-TPU-first design:
+Design:
   * all views are processed in one jitted call instead of the reference's
     per-view host loop (photo_consistency.cpp:133-140);
-  * the cost volume lives in ``(V, D, Mh, Mw)`` layout so the 128-lane axis
-    is the wide superpixel-column axis, not the 31-deep hypothesis axis
-    (a trailing-D layout pads 31 -> 128, a 4x HBM blowup);
+  * the cost volume lives in ``(V, D, Mh, Mw)`` layout so the minor axis
+    is the wide superpixel-column axis, not the 31-deep hypothesis axis;
   * accumulation runs as ``lax.scan`` over neighbor slots and sample points
     (8 x 25 steps), keeping only O(V*D*Mh*Mw) live temporaries instead of
     an unrolled graph of hundreds;
@@ -39,51 +38,6 @@ _OOB_PENALTY = 30.0
 _BIG = 1.0e6
 
 _SAMPLE_OFFSETS = tuple((i, j) for i in range(-2, 3) for j in range(-2, 3))
-
-_WIN_TILE = 512  # rows per grid step of the window-extraction kernel
-
-
-def _win_extract_kernel(lo_ref, hi_ref, rot_ref, off_ref, out_ref):
-    """Per row: out[l] = strip_pair[rot + offs[l]] — the whole hypothesis
-    ladder's (d, channel) values resolved by one 128-lane ``take_along_axis``
-    over the UNROTATED aligned block pair (see BASELINE round 5: partial-row
-    gathers at arbitrary offsets are ~500x slower than this)."""
-    idx = rot_ref[:] + off_ref[:]  # (tile, 1) + (1, 128) -> (tile, 128)
-    v_lo = jnp.take_along_axis(lo_ref[:], jnp.clip(idx, 0, 127), axis=1)
-    v_hi = jnp.take_along_axis(hi_ref[:], jnp.clip(idx - 128, 0, 127), axis=1)
-    out_ref[:] = jnp.where(idx < 128, v_lo, v_hi)
-
-
-def _win_extract(lo, hi, rot, offs: tuple, interpret: bool = False):
-    """lo/hi: (R, 128) f32; rot: (R, 1) int32; offs: 128 static lane
-    offsets.  Returns (R, 128) extracted values."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    r = lo.shape[0]
-    pad = (-r) % _WIN_TILE
-    if pad:
-        lo = jnp.pad(lo, ((0, pad), (0, 0)))
-        hi = jnp.pad(hi, ((0, pad), (0, 0)))
-        rot = jnp.pad(rot, ((0, pad), (0, 0)))
-    rp = r + pad
-    interpret = interpret or jax.default_backend() != "tpu"
-    bspec = pl.BlockSpec(
-        (_WIN_TILE, 128), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-    rspec = pl.BlockSpec(
-        (_WIN_TILE, 1), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-    ospec = pl.BlockSpec((1, 128), lambda i: (0, 0), memory_space=pltpu.VMEM)
-    out = pl.pallas_call(
-        _win_extract_kernel,
-        out_shape=jax.ShapeDtypeStruct((rp, 128), jnp.float32),
-        grid=(rp // _WIN_TILE,),
-        in_specs=[bspec, bspec, rspec, ospec],
-        out_specs=bspec,
-        interpret=interpret,
-    )(lo, hi, rot, jnp.asarray(offs, jnp.int32)[None, :])
-    return out[:r]
 
 
 @partial(jax.jit, static_argnums=(5, 6))
@@ -198,13 +152,13 @@ def superpixel_cost_volume_dense(
     max_abs_disp: float = 256.0,
     deltas_subset: tuple | None = None,  # restrict to these (gx, gy) deltas
     wide_rows: bool = True,
-    # wide_rows=True (single-chip default): gd-minor SAD tables + one wide
-    # row gather per (cell, sample) — 4.0x the per-d form at bench scale
-    # (716 vs 2852 ms) but its python-chunked table builds REPLICATE under
-    # GSPMD view sharding (1.8 TB/device at config-4).  wide_rows=False is
-    # the per-hypothesis narrow-gather form the sharded pipeline uses.
+    # wide_rows=True (single-device default): gd-minor SAD tables + one
+    # wide row gather per (cell, sample); its python-chunked table builds
+    # REPLICATE under GSPMD view sharding (terabytes per device for the
+    # 7x7 2K rig).  wide_rows=False is the per-hypothesis narrow-gather
+    # form the sharded pipeline uses.
 ) -> jax.Array:
-    """TPU-fast formulation of the same cost volume: for each camera-grid
+    """Shift-plane formulation of the same cost volume: for each camera-grid
     delta g and hypothesis d, the projected image is an integer shift of the
     neighbor view (clcode.cl:1034 with the coordinate truncation folded into
     the shift), so the per-(g, d) SAD plane is a dynamic slice of a
@@ -262,9 +216,9 @@ def superpixel_cost_volume_dense(
     # validity is decided by the float test below, never by padding content.
     # The per-delta view roll happens INSIDE the hypothesis loop on the
     # (V, h, w, 3) slice: rolling before padding kept 8 full padded copies
-    # (~2.1 GB) live across the whole scan in the single-jit program
-    # (round-1 HBM budget); spatial padding commutes with the view roll, so
-    # the values are identical.
+    # (~2.1 GB at 9x1080p) live across the whole scan in the single-jit
+    # program; spatial padding commutes with the view roll, so the values
+    # are identical.
     padded_all = jnp.pad(
         lab, ((0, 0), (max_sy, max_sy), (max_sx, max_sx), (0, 0)), mode="edge"
     )
@@ -320,12 +274,11 @@ def superpixel_cost_volume_dense(
         _, vols = jax.lax.scan(per_d, 0, disp_levels.astype(jnp.float32))
         return jnp.moveaxis(vols, 0, 1)  # (V, D, Mh, Mw)  # (V, D, Mh, Mw)
 
-    # ---- wide-row restructure (round 5) ----------------------------------
-    # The original form gathered the per-delta SAD table once PER HYPOTHESIS
-    # (31 x 7.3 M rows of 8 f32 — 226 M narrow rows/scene at the issue-bound
-    # gather rate).  A (V*H*W, G*Dc) gd-minor table instead serves ALL
-    # hypotheses of a D-chunk with ONE ~kB row per (cell, sample) — the
-    # measured wide-row band (BASELINE round-4 ladder) — so the gather count
+    # ---- wide-row restructure --------------------------------------------
+    # The form above gathers the per-delta SAD table once PER HYPOTHESIS
+    # (31 x 7.3 M rows of 8 f32 — 226 M narrow rows per 9x1080p scene).  A
+    # (V*H*W, G*Dc) gd-minor table instead serves ALL hypotheses of a
+    # D-chunk with ONE ~kB row per (cell, sample), so the gather count
     # drops 31x.  D is chunked so only one table (~3.6 GB at the reference
     # scale) plus its scan stack is live at a time.
     d_all = disp_levels.astype(jnp.float32)
@@ -345,8 +298,7 @@ def superpixel_cost_volume_dense(
 
     # The SAD table is indexed by the REFERENCE pixel only (a sample of
     # view z reads rows of view z), so the view axis chunks exactly —
-    # bounding the (stack + table) peak to a few views' worth (the 2-view-
-    # chunk form compiled to 18.4 GB at the reference scale, over HBM).
+    # bounding the (stack + table) peak to a few views' worth.
     v_chunk = max(1, min(v, -(-3 * 2073600 // (h * w))))
     n_vc = -(-v // v_chunk)
 
@@ -437,452 +389,6 @@ def superpixel_cost_volume_dense(
     return vol
 
 
-def _shift_lists(disp_levels, gx: int, gy: int, bl_ratio: float):
-    """Per-hypothesis integer projection shifts, f32-exact vs the dense
-    path's ``jnp.ceil(d * gx)`` / ``jnp.ceil(bl_ratio * d * gy)``."""
-    import numpy as np
-
-    bl = np.float32(bl_ratio)
-    sx = [int(np.ceil(np.float32(d) * np.float32(gx))) for d in disp_levels]
-    sy = [int(np.ceil(bl * np.float32(d) * np.float32(gy))) for d in disp_levels]
-    return sx, sy
-
-
-@partial(jax.jit, static_argnums=(3, 4, 5, 6, 7, 8, 9))
-def superpixel_cost_volume_strips(
-    lab: jax.Array,  # (V, H, W, 3)
-    centers: jax.Array,  # (V, Mh, Mw, 2)
-    step: jax.Array,  # (V, Mh, Mw, 2)
-    disp_levels: tuple,  # static ladder (floats)
-    array_width: int,
-    bl_ratio: float,
-    neib_hor: int = 1,
-    neib_ver: int = 1,
-    diag_strips: bool = False,
-    # diag deltas use the dense shift-plane sweep unless ``diag_strips``
-    # (the sheared-table diagonal strips crash the TPU worker at 9-view
-    # 1080p scale — reproduced rounds 3-4 with both patch-gather and
-    # per-band-flat-gather forms; fine at <=540p, cause still open)
-    skip_dense: bool = False,
-    # probe-only: drop the dense fallback for deltas not covered by a strip
-    # class (output is then NOT the full cost volume — bisection harnesses
-    # use it to time strip classes in isolation)
-) -> jax.Array:
-    """Strip-gather formulation of the same cost volume: per (cell, sample,
-    pair) ONE gathered row carries the contiguous pixel strip covering
-    EVERY hypothesis's projected position (the ladder's integer shifts
-    span a small contiguous window), so axis-aligned pairs need ~25x fewer
-    gather rows than the per-hypothesis table gather.  Diagonal deltas
-    walk a bl-sloped staircase, which a column-SHEARED image copy turns
-    into a B-row horizontal band (B computed exactly on the host), so they
-    strip-gather too; exotic deltas (|g|>1 or bl<1) fall back to the dense
-    shift-plane sweep.
-
-    Exactness: identical padded image, identical f32 shift/validity
-    arithmetic and sample positions as the dense form; only the f32
-    reduction tree differs (~1 ulp on costs) — differential-tested with a
-    near-exact allclose plus WTA agreement (tests/test_depth_init.py).
-    """
-    import numpy as np
-
-    v, h, w = lab.shape[:3]
-    mh, mw = centers.shape[1:3]
-    ah = array_width
-    av = v // array_width
-    d_num = len(disp_levels)
-
-    deltas = [
-        (gx, gy)
-        for gx in range(-neib_hor, neib_hor + 1)
-        for gy in range(-neib_ver, neib_ver + 1)
-        if not (gx == 0 and gy == 0)
-    ]
-    z_np = np.arange(v)
-    zx, zy = z_np % ah, z_np // ah
-
-    max_abs = max((abs(float(d)) for d in disp_levels), default=0.0)
-    max_sx = int(np.ceil(max_abs * neib_hor)) + 1
-    max_sy = int(np.ceil(np.float32(bl_ratio) * max_abs * neib_ver)) + 1
-    padded = jnp.pad(
-        lab, ((0, 0), (max_sy, max_sy), (max_sx, max_sx), (0, 0)), mode="edge"
-    )
-    hp, wp = h + 2 * max_sy, w + 2 * max_sx
-    # All gather operands are kept PIXEL-FLATTENED (channels folded into
-    # the minor axis): any 4-D channel-minor operand tempts XLA into a
-    # lanes-on-channels layout (3 -> 128 pad, observed as 50-110 GB compile
-    # allocations).  Vertical strips gather from the transposed image
-    # (contiguous along y).
-    padded3 = padded.reshape(v, hp, wp * 3)
-    padded_t3 = jnp.swapaxes(padded, 1, 2).reshape(v, wp, hp * 3)
-
-    # ---- reference samples, sample axis OFF-minor: (V, Mh, 25, Mw) -------
-    cxf, cyf = centers[..., 0], centers[..., 1]
-    offs = jnp.asarray(_SAMPLE_OFFSETS, jnp.float32)  # (25, 2)
-    xr = (
-        cxf[:, :, None, :] + offs[:, 0][None, None, :, None] * step[..., 0][:, :, None, :]
-    ).astype(jnp.int32)
-    yr = (
-        cyf[:, :, None, :] + offs[:, 1][None, None, :, None] * step[..., 1][:, :, None, :]
-    ).astype(jnp.int32)
-    ref_ok = (xr >= 0) & (yr >= 0) & (xr < w) & (yr < h)
-    xrf = xr.astype(jnp.float32)
-    yrf = yr.astype(jnp.float32)
-    vid = jnp.arange(v, dtype=jnp.int32)[:, None, None, None]
-    flat_ref = (
-        vid * (h * w) + jnp.clip(yr, 0, h - 1) * w + jnp.clip(xr, 0, w - 1)
-    )
-    c_ref = lab.reshape(-1, 3)[flat_ref.reshape(-1)].reshape(flat_ref.shape + (3,))
-
-    dl32 = [np.float32(d) for d in disp_levels]
-
-    def strip_gather(operand, starts, length_elems):
-        """Gather (1, 1, length_elems) slices from a pixel-flattened
-        (V, A, 3*B) operand: starts (..., 3) = [view, a, 3*b].
-
-        CAUTION (round-5 measurement): partial-row slices at arbitrary
-        offsets lower to a scalar DMA path at ~0.4 M rows/s — only the
-        DIAGONAL band path still uses this form (opt-in diag_strips);
-        the axis classes use the aligned-pair kernel below."""
-        dn = jax.lax.GatherDimensionNumbers(
-            offset_dims=(starts.ndim - 1,),
-            collapsed_slice_dims=(0, 1),
-            start_index_map=(0, 1, 2),
-        )
-        return jax.lax.gather(
-            operand,
-            starts,
-            dn,
-            slice_sizes=(1, 1, length_elems),
-            mode=jax.lax.GatherScatterMode.CLIP,
-        )  # starts.shape[:-1] + (length_elems,)
-
-    def axis_pair_acc(gx: int, gy: int, acc0):
-        """(D, V, Mh, Mw) accumulated sample costs for one axis-aligned
-        delta.
-
-        Round-5 form: per (cell, sample) gather the ALIGNED 256-element
-        block pair covering the whole ladder's window (full-row takes — the
-        fast gather path; see pallas.consistency._strip_gather) and resolve
-        every (hypothesis, channel) value in ONE Mosaic lane gather with
-        the window rotation folded into the static lane offsets.  The
-        hypothesis loop disappears; SAD/validity/sample-sum are plain
-        vectorized XLA with the exact per-hypothesis f32 arithmetic of the
-        dense form."""
-        from cl_multiview_stereo_tpu.ops.pallas.consistency import (
-            _strip_gather as aligned_pair_gather,
-        )
-
-        dz = gy * ah + gx
-        nv = (jnp.arange(v, dtype=jnp.int32) + dz) % v
-        sxl, syl = _shift_lists(disp_levels, gx, gy, bl_ratio)
-        shifts = sxl if gy == 0 else syl
-        lo, hi = min(shifts), max(shifts)
-        length = hi - lo + 1
-        assert 3 * length <= 128, (
-            "ladder window exceeds one lane block — use the dense sweep"
-        )
-        # static lane offsets: lane 3*i+c reads element 3*(hi-shift_i)+c
-        offs_l = [0] * 128
-        for i, sh_i in enumerate(shifts):
-            for c in range(3):
-                offs_l[3 * i + c] = 3 * (hi - sh_i) + c
-        if gy == 0:
-            table = padded3.reshape(v * hp, 3 * wp)
-        else:
-            table = padded_t3.reshape(v * wp, 3 * hp)
-
-        def chunked(a):  # (V, Mh, 25, Mw, ...) -> (25, V, Mh, 1, Mw, ...)
-            return jnp.moveaxis(a[:, :, :, None], 2, 0)
-
-        xs = (chunked(xr), chunked(yr), chunked(c_ref), chunked(ref_ok),
-              chunked(xrf), chunked(yrf))
-        d_arr = jnp.asarray(dl32)  # (D,)
-
-        def chunk_body(acc, x):
-            xr_c, yr_c, c_ref_c, ref_ok_c, xrf_c, yrf_c = x
-            if gy == 0:
-                row = nv[:, None, None, None] * hp + (yr_c + max_sy)
-                col = 3 * (xr_c - hi + max_sx)
-            else:
-                row = nv[:, None, None, None] * wp + (xr_c + max_sx)
-                col = 3 * (yr_c - hi + max_sy)
-            lo_g, hi_g, rot = aligned_pair_gather(table, row, col)
-            shp = row.shape  # (V, Mh, 1, Mw)
-            n_rows = shp[0] * shp[1] * shp[2] * shp[3]
-            val = _win_extract(
-                lo_g.reshape(n_rows, 128), hi_g.reshape(n_rows, 128),
-                rot.reshape(n_rows, 1), tuple(offs_l),
-            ).reshape(shp + (128,))[..., : 3 * len(shifts)]
-            val = val.reshape(shp + (len(shifts), 3))
-            sad = jnp.sum(
-                jnp.abs(c_ref_c[..., None, :] - val), axis=-1
-            )  # (V, Mh, 1, Mw, D)
-            px = xrf_c[..., None] - d_arr * np.float32(gx)
-            py = yrf_c[..., None] - np.float32(bl_ratio) * d_arr * np.float32(gy)
-            ok = (
-                ref_ok_c[..., None]
-                & (px > -1.0) & (px < w) & (py > -1.0) & (py < h)
-            )
-            acc_c = jnp.moveaxis(
-                jnp.sum(jnp.where(ok, sad, _OOB_PENALTY), axis=2), -1, 0
-            )  # (D, V, Mh, Mw)
-            return acc + acc_c, None
-
-        acc, _ = jax.lax.scan(chunk_body, acc0 * 0.0, xs)
-        return acc  # (D, V, Mh, Mw)
-
-    # ---- diagonal deltas: sheared-image strips --------------------------
-    # A diagonal delta's per-hypothesis positions walk a bl-sloped
-    # staircase.  In a column-sheared copy of the padded image,
-    # ``Sh[rho, x] = padded[rho + sgn*shear(x) - OFF, x]`` with
-    # ``shear(x) = x + ceil32((bl - 1) * x)``, that staircase becomes a
-    # near-horizontal band of B rows (B computed EXACTLY on the host over
-    # every possible sample column and hypothesis), so one gathered
-    # (B, Lx, 3) patch per (cell, sample) again covers the whole ladder.
-    bl32 = np.float32(bl_ratio)
-    one32 = np.float32(1.0)
-
-    def shear_np(x):
-        return x + np.ceil((bl32 - one32) * x.astype(np.float32))
-
-    def shear_g(x):
-        return x + jnp.ceil((bl32 - one32) * x)
-
-    shear_max = int(
-        max(float(shear_np(np.float32(wp - 1))), float(wp - 1))
-    )
-
-    def build_sheared(sgn: int):
-        """(V, R, Wp, 3) with Sh[rho, x] = padded[rho + sgn*shear(x) - OFF].
-
-        Everything runs at flat f32-element granularity with channels
-        folded into the row axis (shift unit = 3 elements = 1 pixel): a
-        channel-minor intermediate tempts XLA into a lanes-on-channels
-        layout (3 -> 128 pad, a 42x HBM blowup seen at compile time).
-
-        The build runs PER VIEW under ``lax.map``: the padded flat
-        intermediates are ~2.4 GB for the whole (V, Wp, ...) stack at the
-        reference scale — the round-3 full-scale runs crashed the TPU
-        worker from exactly this transient pressure; per-view they are
-        ~270 MB and the buffer is reused across map steps."""
-        e_vals = (
-            shear_np(np.arange(wp, dtype=np.float32))
-            - np.arange(wp, dtype=np.float32)
-        ).astype(np.int64)  # staircase e(x) >= 0 for bl >= 1
-        e_max = int(e_vals.max())
-        off = shear_max if sgn > 0 else 0
-        r_rows = hp + shear_max + 8
-        # staircase: rows with equal e(x) form static runs
-        bounds = [0] + (np.nonzero(np.diff(e_vals))[0] + 1).tolist() + [wp]
-
-        def one_view(pt3_v):  # (Wp, 3*Hp) one view's transposed flat image
-            if sgn > 0:
-                # ShT[x, rho] = pt[x, rho + x + e(x) - off]: left-pad by
-                # off, then shift row x LEFT by x pixels (flat-reshape
-                # trick), then by e(x) (static staircase runs)
-                right = 3 * (r_rows + e_max + 8)
-                a = jnp.pad(pt3_v, ((0, 0), (3 * off, right)))
-                ln = a.shape[1]
-                flat = jnp.pad(a.reshape(wp * ln), (0, 3 * wp))
-                a = flat[: wp * (ln + 3)].reshape(wp, ln + 3)
-                shift_sign = 1
-            else:
-                # ShT[x, rho] = pt[x, rho - x - e(x)]: left-pad by
-                # shear_max (covers the largest right shift), right-pad
-                # past the staircase slice end, shift row x RIGHT by x
-                right = 3 * (r_rows + 8)
-                a = jnp.pad(pt3_v, ((0, 0), (3 * (shear_max + 8), right)))
-                ln = a.shape[1]
-                flat = a.reshape(wp * ln)[: wp * (ln - 3)]
-                a = flat.reshape(wp, ln - 3)
-                shift_sign = -1
-            parts = []
-            for r0, r1 in zip(bounds[:-1], bounds[1:]):
-                e_run = int(e_vals[r0])
-                start = 3 * (e_run if shift_sign > 0 else shear_max + 8 - e_run)
-                parts.append(
-                    jax.lax.dynamic_slice_in_dim(
-                        a[r0:r1], start, 3 * r_rows, axis=1
-                    )
-                )
-            sh_t = jnp.concatenate(parts, axis=0)  # (Wp, 3*r_rows)
-            # flat 2-D transpose to (3R, Wp): both swapped dims are large,
-            # so the layout stays sane (a (.., Wp, R, 3) 4-D transpose and
-            # a (Lx, 3B) gather tail both triggered 20-110 GB tiled-pad
-            # allocations at compile time)
-            return jnp.swapaxes(sh_t, 0, 1)
-
-        return jax.lax.map(one_view, padded_t3), off  # (V, 3*r_rows, Wp)
-
-    def diag_pair_acc(gx: int, gy: int, sh, off: int, acc0):
-        """Per-band FLAT gathers: the earlier (1, 3B, Lx) 2-D-slice patch
-        gather compiled but faulted the TPU worker at full scale (rounds
-        3-4); B*3 separate (1, 1, Lx) strip gathers are the identical
-        access pattern the axis path runs at full scale without issue."""
-        sgn = gx * gy
-        dz = gy * ah + gx
-        nv = (jnp.arange(v, dtype=jnp.int32) + dz) % v
-        sxl, syl = _shift_lists(disp_levels, gx, gy, bl_ratio)
-        lo, hi = min(sxl), max(sxl)
-        length = hi - lo + 1
-        # exact band: rho_i - rho_base over every possible padded column
-        xs_np = np.arange(wp, dtype=np.float32)
-        sh_xs = shear_np(xs_np)
-        offs_i = [
-            -sy_i - sgn * (shear_np(xs_np - np.float32(sx_i)) - sh_xs)
-            for sx_i, sy_i in zip(sxl, syl)
-        ]
-        e_lo = int(min(o.min() for o in offs_i))
-        e_hi = int(max(o.max() for o in offs_i))
-        bband = e_hi - e_lo + 1
-
-        dn = jax.lax.GatherDimensionNumbers(
-            offset_dims=(4,),
-            collapsed_slice_dims=(0, 1),
-            start_index_map=(0, 1, 2),
-        )
-
-        def chunked(a):  # (V, Mh, 25, Mw, ...) -> (25, V, Mh, 1, Mw, ...)
-            return jnp.moveaxis(a[:, :, :, None], 2, 0)
-
-        xs = (chunked(xr), chunked(yr), chunked(c_ref), chunked(ref_ok),
-              chunked(xrf), chunked(yrf))
-
-        # outer scan over the 25 samples (the body's strip buffers are
-        # reused across iterations), inner scan over the ladder
-        def chunk_body(acc, x):
-            xr_c, yr_c, c_ref_c, ref_ok_c, xrf_c, yrf_c = x
-            xr_pad = xrf_c + np.float32(max_sx)  # (V, Mh, 1, Mw)
-            sh_xr = shear_g(xr_pad)
-            row0 = (
-                (yr_c + max_sy).astype(jnp.float32) - np.float32(sgn) * sh_xr
-            ).astype(jnp.int32) + (off + e_lo)
-            xcol = xr_c - hi + max_sx
-            strips = []  # bband x 3 strips of (V, Mh, 1, Mw, Lx)
-            for b in range(bband):
-                for c in range(3):
-                    starts = jnp.stack(
-                        jnp.broadcast_arrays(
-                            nv[:, None, None, None],
-                            3 * (row0 + b) + c,
-                            xcol,
-                        ),
-                        axis=-1,
-                    )
-                    strips.append(
-                        jax.lax.gather(
-                            sh, starts, dn, slice_sizes=(1, 1, length),
-                            mode=jax.lax.GatherScatterMode.CLIP,
-                        )
-                    )
-
-            def per_d(_, d):
-                sxd = jnp.ceil(d * gx).astype(jnp.int32)
-                syd = jnp.ceil(bl_ratio * d * gy).astype(jnp.int32)
-                # in-band row of this hypothesis at this column (exact f32
-                # ceil arithmetic, identical to the host band computation)
-                beta = (
-                    -syd.astype(jnp.float32)
-                    - np.float32(sgn)
-                    * (shear_g(xr_pad - sxd.astype(jnp.float32)) - sh_xr)
-                    - np.float32(e_lo)
-                ).astype(jnp.int32)
-                sel = hi - sxd
-                val = jnp.zeros(xr_c.shape + (3,), jnp.float32)
-                for b in range(bband):
-                    picked = jnp.stack(
-                        [
-                            jax.lax.dynamic_index_in_dim(
-                                strips[3 * b + c], sel, axis=4, keepdims=False
-                            )
-                            for c in range(3)
-                        ],
-                        axis=-1,
-                    )  # (V, Mh, 1, Mw, 3)
-                    val = jnp.where((beta == b)[..., None], picked, val)
-                sad = jnp.sum(jnp.abs(c_ref_c - val), axis=-1)
-                px = xrf_c - d * gx
-                py = yrf_c - bl_ratio * d * gy
-                ok = ref_ok_c & (px > -1.0) & (px < w) & (py > -1.0) & (py < h)
-                return _, jnp.sum(jnp.where(ok, sad, _OOB_PENALTY), axis=2)
-
-            _, acc_c = jax.lax.scan(per_d, 0, jnp.asarray(dl32))
-            return acc + acc_c, None
-
-        acc, _ = jax.lax.scan(chunk_body, acc0 * 0.0, xs)
-        return acc  # (D, V, Mh, Mw)
-
-    def diag_band_width(gx: int, gy: int) -> int:
-        """Host-side bband for a diagonal delta: the per-hypothesis select in
-        ``diag_pair_acc`` unrolls ``bband`` jnp.where's per ladder level, and
-        bband grows as ~``(bl_ratio - 1) * shift_span`` — a large-bl rig
-        would blow up compile size, so the dispatch caps it (advisor r3)."""
-        sgn = gx * gy
-        sxl, syl = _shift_lists(disp_levels, gx, gy, bl_ratio)
-        xs_np = np.arange(wp, dtype=np.float32)
-        sh_xs = shear_np(xs_np)
-        offs_i = [
-            -sy_i - sgn * (shear_np(xs_np - np.float32(sx_i)) - sh_xs)
-            for sx_i, sy_i in zip(sxl, syl)
-        ]
-        return int(max(o.max() for o in offs_i)) - int(
-            min(o.min() for o in offs_i)
-        ) + 1
-
-    _BBAND_CAP = 12
-
-    vol = jnp.full((d_num, v, mh, mw), _BIG, jnp.float32)
-    # Deltas grouped so each sgn's ~0.8 GB sheared table is built, used by
-    # its two diagonals back-to-back, and DEAD before the other sgn's table
-    # exists (interleaved order kept both alive through the whole loop —
-    # part of the round-3 full-scale memory crash).
-    def _order(d):
-        gx, gy = d
-        if gx == 0 or gy == 0:
-            return 0
-        return 1 if gx * gy > 0 else 2
-
-    sh_cache: dict = {}
-    dense_deltas = []
-    for gx, gy in sorted(deltas, key=_order):
-        valid = (0 <= zx + gx) & (zx + gx < ah) & (0 <= zy + gy) & (zy + gy < av)
-        valid_j = jnp.asarray(valid)[None, :, None, None]
-        if gx == 0 or gy == 0:
-            acc = axis_pair_acc(gx, gy, vol)
-        elif (
-            diag_strips and abs(gx) == 1 and abs(gy) == 1 and bl_ratio >= 1.0
-            and diag_band_width(gx, gy) <= _BBAND_CAP
-        ):
-            # the shear staircase assumes e(x) >= 0 (bl >= 1) and a narrow
-            # band; exotic rigs fall through to the dense sweep below
-            sgn = gx * gy
-            if sgn not in sh_cache:
-                sh_cache.clear()  # drop the other sgn's table reference
-                sh_cache[sgn] = build_sheared(sgn)
-            acc = diag_pair_acc(gx, gy, *sh_cache[sgn], vol)
-        else:
-            # collected: ONE dense shift-plane call serves every non-strip
-            # delta (its per-hypothesis table gather amortizes over deltas)
-            dense_deltas.append((gx, gy))
-            continue
-        # barrier the running minimum so XLA sequences the per-delta
-        # temporaries (patch/strip arrays are GB-scale; round-1 OOM lesson)
-        vol = jax.lax.optimization_barrier(
-            jnp.minimum(vol, jnp.where(valid_j, acc, _BIG))
-        )
-    if dense_deltas and not skip_dense:
-        dvol = superpixel_cost_volume_dense(
-            lab, centers, step,
-            jnp.asarray([float(d) for d in disp_levels], jnp.float32),
-            array_width, bl_ratio, neib_hor, neib_ver,
-            max(abs(float(d)) for d in disp_levels), tuple(dense_deltas),
-        )  # (V, D, Mh, Mw), already masked to valid deltas
-        vol = jax.lax.optimization_barrier(
-            jnp.minimum(vol, jnp.moveaxis(dvol, 1, 0))
-        )
-    return jnp.moveaxis(vol, 0, 1)  # (V, D, Mh, Mw)
-
-
 def wta_disparity(
     vol: jax.Array, disp_levels: jax.Array, subset_num: jax.Array
 ) -> jax.Array:
@@ -915,11 +421,7 @@ def initial_depth_estimation(
     """Full depth init: extent -> adaptive step -> cost volume -> WTA.
 
     ``method``: ``"gather"`` is the direct per-sample gather form;
-    ``"dense"`` the shift-plane TPU formulation (same exact semantics,
-    ~30x faster at 1080p); ``"strips"`` the strip-gather form — CAUTION:
-    at full 9-view 1080p scale the strips run has crashed the TPU worker
-    from runtime memory pressure (BASELINE.md round 3); it stays opt-in
-    until tools/memcheck.py and a full-scale bench revalidate it.
+    ``"dense"`` the shift-plane formulation (same exact semantics).
     ``disp_levels`` must be concrete (numpy): it
     sets the static padding bound even when the caller is being traced.
     Returns (V, Mh, Mw) float32 initial disparity (the reference's
@@ -929,12 +431,7 @@ def initial_depth_estimation(
 
     disp_levels = np.asarray(disp_levels)
     step = extent_step(extent)
-    if method == "strips":
-        vol = superpixel_cost_volume_strips(
-            lab, centers, step, tuple(float(d) for d in disp_levels),
-            array_width, bl_ratio, neib_hor, neib_ver,
-        )
-    elif method == "dense":
+    if method == "dense":
         max_abs = float(np.max(np.abs(disp_levels))) if len(disp_levels) else 0.0
         vol = superpixel_cost_volume_dense(
             lab, centers, step, jnp.asarray(disp_levels, jnp.float32),

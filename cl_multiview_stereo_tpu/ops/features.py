@@ -4,9 +4,9 @@ The reference has no SfM front-end at all (SURVEY.md section 0: the camera
 model is an implicit rectified grid).  This module supplies the front-end
 the north star requires: Harris corners, normalized patch descriptors, and
 mutual-nearest matching — all shape-static, batched over views, with the
-descriptor-distance matrix on the MXU.
+descriptor-distance matrix as one matrix product.
 
-TPU-first choices:
+Design choices:
   * fixed K corners per view (top-K, not thresholding) so every shape is
     static;
   * non-max suppression via 2D max-pool comparison, no sorting loops;
@@ -113,8 +113,9 @@ def match_pairs(
 ) -> Matches:
     """Mutual-nearest descriptor matching with Lowe ratio test, per pair.
 
-    Distances via one MXU matmul per pair (descriptors are L2-normalized so
-    ``d2 = 2 - 2 * a.b``).
+    Distances via one matrix product per pair (descriptors are
+    L2-normalized so ``d2 = 2 - 2 * a.b``); ``run_sfm`` traces it at full
+    float32 precision.
     """
 
     def one_pair(pair):

@@ -43,14 +43,14 @@ def select_cell_lookup(
 ) -> jax.Array | list[jax.Array]:
     """Gather-free per-pixel lookup of the owning superpixel's fields.
 
-    TPU random gathers run at a fixed ~125-250 M rows/s (BASELINE.md), so
-    ``fields.reshape(-1, C)[labels]`` costs ~100 ms at 9x1080p per call.
-    But SLIC confines every pixel's label to the 3x3 cell window around the
-    pixel's own grid cell (the assignment search of clcode.cl:461-468 only
-    offers candidates with |cell delta| <= 1, and the update drops members
-    outside their cluster's 3S x 3S window), so the lookup is a sum of
+    ``fields.reshape(-1, C)[labels]`` is one random gather row per pixel
+    (18.7M rows at 9x1080p).  But SLIC confines every pixel's label to the
+    3x3 cell window around the pixel's own grid cell (the assignment search
+    of clcode.cl:461-468 only offers candidates with |cell delta| <= 1, and
+    the update drops members outside their cluster's 3S x 3S window), so
+    the lookup is a sum of
     ``(2*radius+1)^2`` compare-selects against shifted upsampled cell maps —
-    pure fused vector math, ~20x faster.  Each ``supress_local_lable`` pass
+    pure fused vector math.  Each ``supress_local_lable`` pass
     (clcode.cl:676-711, +-2 px adoption) widens the bound by one cell:
     ``radius = 1 + number_of_suppress_passes``.
 
@@ -65,7 +65,8 @@ def select_cell_lookup(
     ``refine._rasterize_flat``): reshaping the stacked output to ``(N, C)``
     makes XLA propagate the transposed table layout upstream through the
     whole select chain, materializing every per-window match mask as a
-    4x-padded ``pred[N,1]`` temp — the round-1 bench OOM (VERDICT.md item 1).
+    padded ``pred[N,1]`` temporary, enough to run the single-jit program out
+    of device memory.
     """
     v, h, w = labels.shape
     mh, mw = fields.shape[1:3]
@@ -74,9 +75,8 @@ def select_cell_lookup(
     cx = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1)[None] // s  # (1,H,W)
     cy = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0)[None] // s
 
-    # channel-planar accumulation: (V, H, W, C) puts C (tiny) on the TPU
-    # lane axis, wasting 120+ of 128 lanes — accumulate per-field (V, H, W)
-    # planes (W on lanes) and stack once at the end
+    # channel-planar accumulation: accumulate per-field (V, H, W) planes
+    # (the wide W axis minor, not the tiny C) and stack once at the end
     out = [jnp.zeros((v, h, w), jnp.float32) for _ in range(c)]
     for dy in range(-radius, radius + 1):
         for dx in range(-radius, radius + 1):

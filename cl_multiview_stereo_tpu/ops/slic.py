@@ -10,8 +10,8 @@ Behavioral spec: the live SLIC path of the reference
       find_center_association
   [optional] supress_local_lable x2 ping-pong (clcode.cl:676-711)
 
-TPU-first design deltas (SURVEY.md section 7.1):
-  * one view = one vmap lane; all views segment in a single jitted call
+Design deltas (SURVEY.md section 7.1):
+  * views are a vmapped axis; all views segment in a single jitted call
     instead of the reference's host loop (pipeline.cpp:76-95);
   * the workgroup-local tree reduction of the update stage (clcode.cl:582-597)
     becomes a dense ``segment_sum`` over per-view labels — identical math,
@@ -83,12 +83,8 @@ def _upsample_map(field: jax.Array, p: int, q: int, h: int, w: int, s: int):
     ``field[v, row//s + p, col//s + q]`` as a (V, H, W, C) array plus a
     validity mask — built from a static map shift + block repeat, so the
     whole SLIC assignment needs NO gathers (everything fuses to elementwise
-    selects on TPU).
-
-    An isolated-jit probe (round 5) measured a channel-planar variant of
-    this at 9.5 ms/association vs 22 ms — but composed into ``segment``
-    the planar form REGRESSED the stage 300 -> 856 ms (fusion-heuristic
-    sensitivity), so the packed form stays."""
+    selects).  The channel-packed form is kept here; a channel-planar
+    variant is the alternative to time against it."""
     v, mh, mw = field.shape[:3]
     rolled = jnp.roll(field, shift=(-p, -q), axis=(1, 2))
     colm = jax.lax.broadcasted_iota(jnp.int32, (mh, mw), 1)
@@ -135,9 +131,9 @@ def find_center_association(
     # Distance to cluster (cy + a, cx + b) per static cell shift (a, b):
     # each upsampled 5-channel field map has exactly ONE consumer here, so
     # XLA fuses it into the distance arithmetic instead of materializing
-    # nine 370 MB (V, H, W, 5) temps (the round-1 single-jit program kept
-    # all nine live at once — ~3.3 GB of the HBM budget).  Only the nine
-    # (V, H, W) float32 distance planes persist.
+    # nine 370 MB (V, H, W, 5) temps (~3.3 GB at 9x1080p if all nine were
+    # live at once).  Only the nine (V, H, W) float32 distance planes
+    # persist.
     dists: dict[tuple[int, int], jax.Array] = {}
     for a in (-1, 0, 1):
         for b in (-1, 0, 1):
@@ -197,17 +193,15 @@ def update_cluster_centers(
     # Scatter-free reduction: a pixel inside its cluster's 3S x 3S window
     # necessarily carries a label within +-1 cell of its home cell, so the
     # per-label scatter becomes a 9-class one-hot multiply + per-cell block
-    # sum + 9 static shifts (all dense, MXU/VPU friendly).  Membership
+    # sum + 9 static shifts (all dense).  Membership
     # outside the window (|cell delta| > 1) is exactly the window-drop
     # semantics of the device reduction (clcode.cl:558-566).
     rel_x = gx - col[None] // s  # (V, H, W) in {-1, 0, 1} when in-window
     rel_y = gy - row[None] // s
 
-    # Channel-PLANAR accumulation: a (V, H, W, 6) operand puts the 6-wide
-    # channel axis on the 128 lanes (21x pad — measured as ~78 ms/call of
-    # the SLIC stage's 520 ms, round-5 probe); six (V, H, W) planes keep
-    # the wide W axis minor and the whole update fuses to selects + block
-    # sums at full lane utilization.
+    # Channel-PLANAR accumulation: six (V, H, W) planes keep the wide W
+    # axis minor (a (V, H, W, 6) operand would put the 6-wide channel axis
+    # minor), and the whole update fuses to selects + block sums.
     colf = jnp.broadcast_to(col.astype(jnp.float32)[None], (v, h, w))
     rowf = jnp.broadcast_to(row.astype(jnp.float32)[None], (v, h, w))
     planes = (
@@ -236,10 +230,8 @@ def update_cluster_centers(
                     plane * sel, ((0, 0), (0, hp - h), (0, wp - w))
                 )
                 # two-stage block sum: a direct (V, mh, s, mw, s) reshape
-                # puts s = 8 on the minor axis, which tiles to (8, 128) —
-                # a 16x padded 1.1 GB temp PER SHIFT (measured as a 35.9 GB
-                # compile-time OOM under scan remat, round-5 probe); row
-                # sums first keep the wide Wp axis minor throughout
+                # puts s = 8 on the minor axis; row sums first keep the
+                # wide Wp axis minor throughout
                 rows_s = contrib.reshape(v, mh, s, wp).sum(axis=2)
                 block = rows_s.reshape(v, mh, mw, s).sum(axis=3)
                 shifted = jnp.roll(block, shift=(dy, dx), axis=(1, 2))

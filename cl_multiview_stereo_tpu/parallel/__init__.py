@@ -1,4 +1,4 @@
-"""Multi-chip scaling: meshes, shardings, and the sharded pipeline.
+"""Multi-device scaling: meshes, shardings, and the sharded pipeline.
 
 The reference is strictly single-device (``pipeline.cpp:36-38`` picks the
 first GPU; the only "communication" is PCIe buffer copies).  Here scaling is

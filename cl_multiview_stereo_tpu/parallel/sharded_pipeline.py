@@ -1,12 +1,12 @@
 """View-sharded execution of the flagship pipeline.
 
 Strategy (SURVEY.md section 2.3): the view axis is the data-parallel axis —
-each chip owns ``V / n_view`` views end-to-end.  Stages that only touch
+each device owns ``V / n_view`` views end-to-end.  Stages that only touch
 their own view (Lab, SLIC, extent, flatness, rasterization) shard
 embarrassingly; the cross-view stages (cost volume, consistency scoring,
 fusion vote) read neighbor views' images/superpixel state, which GSPMD
 turns into all-gathers over the ``view`` mesh axis (neighbor radius is 1
-camera-grid cell, so the gathered footprint is small and rides ICI).
+camera-grid cell, so the gathered footprint is small).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from cl_multiview_stereo_tpu.config import SystemSettings, DerivedGeometry
-from cl_multiview_stereo_tpu.models.mvs_pipeline import MVSPipeline
+from cl_multiview_stereo_tpu.models.mvs_pipeline import XLA_OPTIONS, MVSPipeline
 
 
 def sharded_pipeline_fn(pipe: MVSPipeline, mesh):
@@ -30,7 +30,9 @@ def sharded_pipeline_fn(pipe: MVSPipeline, mesh):
     def fwd(rgb):
         return pipe.run(rgb).disp_full
 
-    return jax.jit(fwd, in_shardings=in_s, out_shardings=out_s)
+    return jax.jit(
+        fwd, in_shardings=in_s, out_shardings=out_s, compiler_options=XLA_OPTIONS
+    )
 
 
 def run_sharded(pipe: MVSPipeline, rgb: np.ndarray, mesh):

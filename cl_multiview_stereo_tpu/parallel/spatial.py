@@ -1,12 +1,12 @@
 """Depth-slab and spatial-tile sharding for the cost-volume sweep.
 
 The reference has no inter-device parallelism at all (SURVEY.md section 2.3:
-one OpenCL device, `devices[0]` everywhere).  These are the TPU-native
+one OpenCL device, `devices[0]` everywhere).  These are the
 scaling strategies the framework adds on top of the view-parallel pipeline
 (parallel/sharded_pipeline.py):
 
 * **Depth-slab sharding (the TP analog)** — the disparity-hypothesis axis of
-  the cost volume is sharded over a mesh axis: each chip sweeps a contiguous
+  the cost volume is sharded over a mesh axis: each device sweeps a contiguous
   slab of the ladder, reduces it locally with winner-take-all, and the
   per-slab winners are combined with one tiny ``all_gather`` (cost + disp
   per superpixel).  Ties resolve to the lowest disparity exactly like the
@@ -15,14 +15,14 @@ scaling strategies the framework adds on top of the view-parallel pipeline
 
 * **Spatial row-tile sharding with halo exchange (the SP analog)** — the
   dense per-pixel sweep (models/plane_sweep.py) is sharded by image rows:
-  each chip owns an H/n row band of every view and exchanges
+  each device owns an H/n row band of every view and exchanges
   ``max_shift + box_radius`` halo rows with its mesh neighbors via
   ``lax.ppermute`` before sweeping locally.  The vertical projection reach
   is statically bounded by the ladder (``ceil(bl_ratio*max_disp*neib_ver)``),
   so the halo is exact — the sharded result is bitwise identical to the
   unsharded sweep.
 
-Both run under ``shard_map`` so the collectives are explicit and ride ICI.
+Both run under ``shard_map`` so the collectives are explicit.
 """
 
 from __future__ import annotations
@@ -105,7 +105,7 @@ def disp_sharded_depth_init(
 ) -> jax.Array:
     """Superpixel plane-sweep depth init with the hypothesis ladder sharded
     over ``mesh`` axis ``axis``.  Exact same result as the unsharded
-    ``initial_depth_estimation`` (dense method): each chip sweeps its slab,
+    ``initial_depth_estimation`` (dense method): each device sweeps its slab,
     WTA-reduces locally, and the winners are all-gathered and argmin-reduced.
 
     The ladder length must divide the mesh axis size evenly (pad the ladder
@@ -273,7 +273,7 @@ def spatial_refine(
 
     Per Jacobi sweep each device:
       * all-gathers the *cell-level* input state (d, n — a few MB even at
-        49 views: tiny, rides ICI) and builds the tap/move caches for its
+        49 views: tiny) and builds the tap/move caches for its
         own superpixel rows;
       * rasterizes only its own pixel rows of the input state and extends
         them with ``ppermute`` halo exchange — the (V, H, W, 4) table is

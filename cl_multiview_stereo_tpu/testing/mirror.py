@@ -26,7 +26,7 @@ import numpy as np
 
 def f32exp(x: float) -> float:
     """float32 + flush-to-zero exp(): the device computes similarities in
-    float32 and TPUs/XLA flush denormals, so exp(-large) is exactly 0 below
+    float32 and XLA flushes denormals, so exp(-large) is exactly 0 below
     the min normal (1.18e-38); the float64 mirror must reproduce that or it
     keeps tiny weights the device never sees."""
     if x <= -700:

@@ -3,7 +3,7 @@
 The reference has no sanitizers and *continues after errors* — often with
 inverted success checks (``if (CL_SUCCESS)``, clSLIC.cpp:182) and
 fall-through error printers (file_handler.cpp:97-113).  SURVEY.md section 5
-prescribes the opposite for the TPU build: functional purity plus
+prescribes the opposite here: functional purity plus
 ``checkify`` for NaN/bounds checks and fail-fast on bad stage output.
 """
 
@@ -21,7 +21,7 @@ def checked(fn: Callable, *, errors=None) -> Callable:
 
     The wrapper raises ``jax._src.checkify.JaxRuntimeError`` at the first
     NaN/inf or out-of-bounds index produced anywhere inside ``fn`` —
-    opt-in debug mode (roughly the TPU equivalent of running the reference's
+    opt-in debug mode (roughly the equivalent of running the reference's
     host-mirror comparators, SURVEY.md section 4).
     """
     errs = errors if errors is not None else (

@@ -1,13 +1,11 @@
-"""Golden-output parity vs the reference's shipped result PNGs
-(VERDICT round-1 item 3).
+"""Golden-output parity vs the reference's shipped result PNGs.
 
 These run the FULL pipeline at 1080p (9-view Beer-Garden for both the
 depth-init and fusion anchors — round-5 forensics showed initD_dev0..8
-are a Beer-Garden run) — minutes on the TPU, tens of minutes on
-CPU — so they are slow-marked AND gated behind ``GOLDEN_PARITY=1``.
-Reference miss-rates were measured on the chip and recorded in BASELINE.md
-("Golden parity" section); the thresholds here sit just under those
-measurements so regressions surface.
+are a Beer-Garden run) — tens of minutes on the CPU — so they are
+slow-marked AND gated behind ``GOLDEN_PARITY=1``, and they need the
+reference checkout.  The thresholds sit just under the miss-rates an
+earlier accelerator run measured, so regressions surface.
 
 Caveat on absolute levels: the goldens are the only artifacts the reference
 ever produced, but they come from unlabeled experiment variants
@@ -26,7 +24,7 @@ pytestmark = [
     pytest.mark.slow,
     pytest.mark.skipif(
         not os.environ.get("GOLDEN_PARITY"),
-        reason="full-res golden parity: set GOLDEN_PARITY=1 (run on the TPU)",
+        reason="full-res golden parity: set GOLDEN_PARITY=1 (needs the reference checkout)",
     ),
 ]
 

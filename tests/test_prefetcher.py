@@ -2,7 +2,8 @@
 
 import numpy as np
 import pytest
-from PIL import Image
+
+from cl_multiview_stereo_tpu.io.png import write_png
 
 
 @pytest.fixture(scope="module")
@@ -17,7 +18,7 @@ def scene_files(tmp_path_factory):
         for v in range(2):
             arr = rng.integers(0, 256, size=(24, 32, 3), dtype=np.uint8)
             p = root / f"s{s}_v{v}.png"
-            Image.fromarray(arr).save(p)
+            write_png(str(p), arr)
             paths.append(str(p))
             views.append(arr)
         scenes.append(paths)
@@ -33,6 +34,21 @@ def test_prefetcher_matches_direct_loads(scene_files):
         got = list(pf)
     assert [i for i, _ in got] == [0, 1, 2]
     for (i, arr), want in zip(got, arrays):
+        np.testing.assert_array_equal(arr, want)
+
+
+def test_prefetcher_codec_fallback(scene_files, monkeypatch):
+    """Without the native library the prefetcher decodes synchronously
+    through the numpy PNG codec and yields the same arrays."""
+    from cl_multiview_stereo_tpu.io import prefetcher
+
+    monkeypatch.setattr(prefetcher, "_lib", lambda: None)
+    scenes, arrays = scene_files
+    with prefetcher.ScenePrefetcher(scenes, 24, 32) as pf:
+        assert pf._handle is None
+        got = list(pf)
+    assert [i for i, _ in got] == [0, 1, 2]
+    for (_, arr), want in zip(got, arrays):
         np.testing.assert_array_equal(arr, want)
 
 

@@ -327,3 +327,15 @@ def test_propagate_mirror_at_reference_geometry():
                 f"it={it} {field}: agreement {close.mean()}, "
                 f"misses {(~close).sum()}/{n}"
             )
+
+
+@pytest.mark.parametrize("x", [0.0, -1.0, -87.0, -87.4, -88.0, -90.0, -103.0, -200.0])
+def test_f32exp_flushes_like_the_mirror(x):
+    """exp() below the smallest normal float32 is 0 on every backend, as
+    mirror.f32exp defines it (a GPU keeps denormals unless told)."""
+    import jax.numpy as jnp
+
+    from cl_multiview_stereo_tpu.ops.refine import _f32exp
+
+    got = float(_f32exp(jnp.float32(x)))
+    assert got == mirror.f32exp(x)
